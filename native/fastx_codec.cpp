@@ -1,7 +1,7 @@
 // Native FASTA/FASTQ parser + 2-bit-code encoder.
 //
 // Reference counterpart: SURVEY.md R1/R2 (Python FASTA reader + base encoder).
-// The TPU pipeline consumes dense [R, read_len] int8 code matrices (A=0 C=1
+// The device pipeline consumes dense [R, read_len] int8 code matrices (A=0 C=1
 // G=2 T=3, N/pad=4); parsing millions of reads in Python dominates host time,
 // so this single-pass C++ codec writes the code matrix directly from the raw
 // file bytes. Quality masking (phred < min_qual -> N) happens in the same pass

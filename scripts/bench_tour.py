@@ -1,4 +1,4 @@
-"""Eulerian tour (R9 circuit merge) at bench scale on the chip (VERDICT r2 item 4/7).
+"""Eulerian tour (R9 circuit merge) at bench scale on the chip.
 
 Runs the full `eulerian_tour` — successor pairing, packed-state circuit
 labeling, O(log C) rotation swipe merge, Wyllie rank — on the config-2 bench

@@ -1,4 +1,4 @@
-"""Full-scale ADVERSARIAL run (VERDICT r4 item 6): a 12 Mbp tandem +
+"""Full-scale ADVERSARIAL run: a 12 Mbp tandem +
 interspersed-repeat genome with errored reads through cutoff + tips +
 bubbles and the grouped streaming count path — the first at-scale run that
 emits MANY contigs, stressing emission capacity retry and the multi-chain

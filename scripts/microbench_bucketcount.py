@@ -1,5 +1,5 @@
 """A/B: monolithic variadic sort vs a two-level bucket/partition counting
-pass at one-shot scale (VERDICT r3 item 2 — committed numbers, in git).
+pass at one-shot scale.
 
 The round-3 "redirect" of the Pallas counting kernel rested on a bitonic
 ceiling argument that does not bound a radix/bucket kernel. This script
@@ -224,10 +224,7 @@ def main():
         "vs_monolithic": round(total_b / t_mono, 3),
         "verdict": ("two-level WINS" if total_b < t_mono and t_sub else
                     "monolithic WINS — the isolated data-movement gather "
-                    "alone costs more than the whole monolithic sort: TPU "
-                    "gather/scatter transactions (~69 ns/row) dwarf the "
-                    "bitonic network's ~5.8 ns/row; no partition scheme "
-                    "expressible as gather/scatter can recover that"),
+                    "alone costs more than the whole monolithic sort"),
     })
     print(json.dumps(rows[-1]), flush=True)
     print(f"wrote {_write(rows)}")

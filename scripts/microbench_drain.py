@@ -1,4 +1,4 @@
-"""Microbench: decompose the oneshot count_drain (5.2s at bench scale) into
+"""Microbench: decompose the oneshot count_drain at bench scale into
 its constituent ops on the real chip, and A/B candidate replacements:
 
   a) the 2-limb 165M-row key sort

@@ -1,6 +1,6 @@
-"""Microbench: do indices_are_sorted/unique_indices hints speed up TPU
+"""Microbench: do indices_are_sorted/unique_indices hints speed up
 scatter/gather at counting scale? Decides whether the oneshot-count
-postprocess keeps XLA scatters or needs a Pallas pass.
+postprocess keeps XLA scatters or needs a hand-written kernel.
 """
 
 from __future__ import annotations

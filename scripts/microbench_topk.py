@@ -1,8 +1,8 @@
 """Can lax.top_k beat the 1-operand composite sort for segment-start compaction?
 
 The oneshot drain compacts the ~C segment-start row indices out of T rows with
-a composite-key sort (comp = is_new ? row : row+T), measured ~0.71 s at
-T=165M. top_k(T -> C_cap) could be cheaper if XLA's TPU top_k does a partial
+a composite-key sort (comp = is_new ? row : row+T) at T=165M.
+top_k(T -> C_cap) could be cheaper if the backend's top_k does a partial
 sort. This measures both at bench scale plus the 2-group split costs.
 """
 

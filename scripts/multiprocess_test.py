@@ -1,6 +1,9 @@
 """True multi-process distributed assembly test (SURVEY.md section 4: spawn N
 processes with jax.distributed.initialize for real cross-process collectives —
-the single-host stand-in for a multi-host TPU pod slice).
+the single-host stand-in for a multi-host run).
+
+A CPU tool: every worker forces the CPU platform with virtual devices, so it
+runs the same on a machine with or without a GPU.
 
 Usage: python scripts/multiprocess_test.py [n_procs]   (parent mode)
 Exit 0 iff every process assembles the shared dataset to the oracle contig set

@@ -1,8 +1,8 @@
-"""Decompose the config-5 count_drain (423 s = 71% of the r04 full-scale wall).
+"""Decompose the config-5 count_drain, the largest stage of the full-scale wall.
 
-VERDICT r4 item 1: run the counting stage ONLY (no graph/extract) at full
+Runs the counting stage ONLY (no graph/extract) at full
 config-5 scale with TPU_EULER_FINE_TIMERS per-group splits — alloc wait,
-fill-completion sync (H2D + Pallas extract), group sort+reduce, lean merge —
+fill-completion sync (H2D + extract), group sort+reduce, lean merge —
 and commit the per-group breakdown so the dominant term is measured, not
 guessed.
 

@@ -1,4 +1,4 @@
-"""Decompose the config-5 graph stage (~103 s of the 245 s wall) with the
+"""Decompose the config-5 graph stage with the
 existing TPU_EULER_FINE_TIMERS hooks + per-substep D2H fences.
 
 Counting runs first (arena path, ~2 min warm) from the cached sim codes

@@ -3,7 +3,7 @@ via this explicit script, never implicitly in tests).
 
 Writes tests/golden/golden.json: sha256 of the sorted canonical contig set for
 fixed (genome seed, read seed, k, min_count) configurations, computed with the
-CPU oracle (the ground truth — independent of the TPU pipeline under test).
+CPU oracle (the ground truth — independent of the device pipeline under test).
 """
 
 from __future__ import annotations

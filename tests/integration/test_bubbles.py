@@ -1,4 +1,4 @@
-"""Bubble popping: TPU pipeline vs CPU oracle with identical semantics
+"""Bubble popping: device pipeline vs CPU oracle with identical semantics
 (SURVEY.md §5 "tip/bubble handling"; SPEC config 3 error artifacts)."""
 
 import numpy as np

@@ -1,5 +1,5 @@
 """Randomized property sweep (SURVEY.md section 4 property tests): for seeded
-random parameter combinations, the TPU pipeline must equal the CPU oracle
+random parameter combinations, the device pipeline must equal the CPU oracle
 exactly, and error-free assemblies must re-spell the genome."""
 
 import numpy as np
@@ -13,7 +13,7 @@ from tpu_euler.verify.compare import canonical_contig_set, diff_contig_sets
 
 
 # ---------------------------------------------------------------------------
-# Adversarial genome profiles (VERDICT r3 item 8): repeat-heavy, homopolymer,
+# Adversarial genome profiles: repeat-heavy, homopolymer,
 # GC-skewed and microsatellite genomes — the structures uniform-random fuzz
 # never produces. Each must still match the CPU oracle EXACTLY.
 # ---------------------------------------------------------------------------

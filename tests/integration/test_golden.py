@@ -1,4 +1,4 @@
-"""Golden-file tests (SURVEY.md section 4): the TPU pipeline must reproduce the
+"""Golden-file tests (SURVEY.md section 4): the device pipeline must reproduce the
 checked-in contig-set digests exactly. Regenerate ONLY via
 scripts/regen_golden.py."""
 

@@ -1,4 +1,4 @@
-"""Oracle integration tests (SURVEY.md section 4): the TPU pipeline's contig set
+"""Oracle integration tests (SURVEY.md section 4): the device pipeline's contig set
 must exactly equal the CPU oracle's after canonicalization — the SPEC bar."""
 
 import pytest

@@ -1,4 +1,4 @@
-"""Tip clipping: TPU pipeline vs CPU oracle with identical semantics."""
+"""Tip clipping: device pipeline vs CPU oracle with identical semantics."""
 
 import numpy as np
 import pytest

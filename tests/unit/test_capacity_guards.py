@@ -1,4 +1,4 @@
-"""int32/uint32 frontier guards (VERDICT r4 item 8): the composite-key row
+"""int32/uint32 frontier guards: the composite-key row
 math in the counting paths wraps uint32 past 2^31 rows; these tests construct
 the boundary condition at ZERO allocation (factory-time asserts and
 jax.eval_shape abstract tracing) and check the guards fail loudly."""
@@ -41,8 +41,8 @@ def test_merge_lean_rejects_2p31_rows():
 
 def test_endpoint_payload_rejects_2p30_rows():
     """The graph endpoint sort packs row ids into 30 payload bits; 2C >= 2^30
-    must fail loudly instead of corrupting strand/palindrome bits
-    (ADVICE r4). Exercised abstractly via eval_shape."""
+    must fail loudly instead of corrupting strand/palindrome bits.
+    Exercised abstractly via eval_shape."""
     from tpu_euler.graph.build import _canon_endpoint_parts
 
     C = 1 << 29

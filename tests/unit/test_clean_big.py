@@ -1,7 +1,7 @@
 """The large-graph cleaning path (staged build + ruling-set chains) must be
 bit-identical to the monolithic doubling path — forced at small scale via
-big_edges=1 (round 5: the 12 Mbp adversarial run's cleaning graphs made the
-monolithic jit the dominant cost and, pre-fix, a TPU-worker crash)."""
+big_edges=1 (the 12 Mbp adversarial run's cleaning graphs made the
+monolithic jit the dominant cost and, pre-fix, ran out of device memory)."""
 
 import numpy as np
 

@@ -1,6 +1,6 @@
-"""tpu-euler: a TPU-native Eulerian-path / de Bruijn graph de novo genome assembler.
+"""tpu-euler: an Eulerian-path / de Bruijn graph de novo genome assembler in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 ``zenlc2000/pycuda-euler`` (PyCUDA Eulerian assembler, EULER / GPU-Euler lineage;
 see SURVEY.md — the reference mount was empty, so parity targets come from
 SURVEY.md sections 1-2 and BASELINE.json rather than file:line citations).

@@ -57,7 +57,7 @@ class AssemblyConfig:
     # Node-array capacity as a fraction of edge capacity E. 2.0 = the exact
     # worst case 2E (every edge endpoint distinct — isolated k-mers). In a
     # connected assembly graph n_nodes ~~ E, so memory-bound runs (SPEC
-    # config 5: 100 Mbp on one 16 GB chip) set ~1.15 to halve the four
+    # config 5: 100 Mbp on one device) set ~1.15 to halve the four
     # per-node int32 arrays; the pipeline verifies n_nodes fits and raises
     # with guidance if not.
     node_cap_factor: float = 2.0

@@ -17,8 +17,8 @@ partitioned by k-mer prefix". Design:
 * Dropped-key overflow (a destination slab filling up) is detected and psum'd so
   the host can fail loudly rather than under-count.
 
-All shapes are static; the same code runs on an 8-virtual-device CPU mesh and a
-TPU pod slice (SURVEY.md section 4 multi-host strategy).
+All shapes are static; the same code runs on an 8-virtual-device CPU mesh and on
+several GPUs (SURVEY.md section 4 multi-host strategy).
 """
 
 from __future__ import annotations
@@ -144,7 +144,7 @@ def make_dist_fill_step(k: int, n_dev: int, c_dest: int, mesh: Mesh):
 
     The single-chip path retired per-batch capacity sorts in round 1
     (one-shot/grouped counting, pipeline/assemble.py); this brings the same
-    strategy to the distributed exchange (VERDICT r4 item 3): each batch's
+    strategy to the distributed exchange: each batch's
     RECEIVED (owned) keys are appended to a per-device T-row sentinel buffer
     instead of being sorted+merged immediately. Invalid slab padding becomes
     the all-ones sentinel (k %% 16 != 0 — enforced by the pipeline), which
@@ -218,7 +218,7 @@ def make_dist_drain_step(k: int, c_local: int, mesh: Mesh):
     bufspec = tuple(P(AXIS) for _ in range(L))
     # buf is NOT donated: its T-row buffers cannot alias the capacity-sized
     # outputs (XLA donation is output-aliasing only — a donated-but-unaliased
-    # buffer is a warning and a no-op, VERDICT r3 weak #3). The caller drops
+    # buffer is a warning and a no-op). The caller drops
     # its buf reference right after the call, which frees it just as early.
     return jax.jit(
         jax.shard_map(

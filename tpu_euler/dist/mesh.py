@@ -1,7 +1,7 @@
 """Device mesh construction (SPEC D1).
 
 The reference is single-GPU/single-process (SURVEY.md section 2a); all distributed
-components are new, SPEC-mandated. On a multi-host TPU pod slice the caller runs
+components are new, SPEC-mandated. On several hosts the caller runs
 ``jax.distributed.initialize()`` first (one process per host); on a single host
 (or the 8-virtual-device CPU test mesh) this just wraps local devices.
 """

@@ -3,8 +3,8 @@
 The k-mer spectrum is always sharded via hash-bucket all_to_all. Traversal has
 two modes: replicated (gather the post-cutoff spectrum — cheapest at bacterial
 scale) and fully sharded (dist/traverse_dist.py — O(E/n_dev) per device for
-pod-slice scale, SPEC configs 4-5). Works single-process (virtual CPU mesh or
-TPU slice) and true multi-process (jax.distributed; see
+multi-device scale, SPEC configs 4-5). Works single-process (virtual CPU mesh or
+the GPUs of one host) and true multi-process (jax.distributed; see
 scripts/multiprocess_test.py) — host reads go through fetch_global.
 """
 
@@ -69,7 +69,7 @@ def assemble_reads_distributed(
     c_dest = int(dest_capacity_factor * windows / n_dev + 256)
     c_local = cfg.spectrum_capacity // n_dev
 
-    # Grouped one-shot counting (VERDICT r4 item 3): buffer received keys per
+    # Grouped one-shot counting: buffer received keys per
     # device across `bpg` batches, sort ONCE per group, lean-merge locally —
     # the per-batch (capacity + slab)-row merge sort the single-chip path
     # measured-and-retired in round 1 leaves the hot loop. Requires the

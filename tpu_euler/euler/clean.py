@@ -85,8 +85,8 @@ def clip_tips_once_big(
 
     The monolithic ``clip_tips_once`` jit builds the graph and runs
     O(E log E) pointer-DOUBLING chains in one program — at the 12 Mbp
-    adversarial run's 25M-edge cleaning graphs that cost ~100 s/round
-    (ADVERSARIAL_r05, tips 316 s of 663). This path reuses the main
+    adversarial run's 25M-edge cleaning graphs that dominated the run's
+    wall. This path reuses the main
     pipeline's machinery: ``build_graph_staged`` (bounded transients) +
     ``chains_from_successors_spec`` (ruling-set walk, output bit-identical
     to ``unitig_chains``), then the same marking jit.

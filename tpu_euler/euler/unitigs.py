@@ -175,7 +175,7 @@ def cut_cycles_from_t(
     Cycle detection and min-transition propagation run in ONE fused doubling
     loop whose per-edge state (pointer + candidate min key) lives in a single
     packed [E, 1+L] row — one row-gather per round instead of several scalar
-    gathers (random-gather transactions, not bytes, dominate on TPU HBM).
+    gathers (random-gather transactions, not bytes, are taken to dominate).
     """
     E = succ.shape[0]
     rounds = _log2_ceil(E) + 1

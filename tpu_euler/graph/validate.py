@@ -1,4 +1,4 @@
-"""Debug validation of graph/traversal invariants (SURVEY.md section 5: the TPU
+"""Debug validation of graph/traversal invariants (SURVEY.md section 5: the JAX
 answer to cuda-memcheck/sanitizers — XLA is race-free inside jit, so what needs
 checking is index/semantic invariants, on demand, off the hot path)."""
 

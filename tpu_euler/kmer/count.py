@@ -143,7 +143,7 @@ def oneshot_reduce(s: tuple, capacity: int) -> tuple[Spectrum, jax.Array]:
     T = s[0].shape[0]
     # the composite compaction key is iota + T for non-starts (uint32):
     # T >= 2^31 would wrap it into the segment-start range and silently
-    # corrupt the dedup (SURVEY section 7 capacity bounds / VERDICT r4 item 8)
+    # corrupt the dedup (SURVEY section 7 capacity bounds)
     assert T < 1 << 31, f"oneshot_reduce buffer {T} rows >= 2^31: split groups"
     sv = s[0] != jnp.uint32(0xFFFFFFFF)
     is_new = jnp.zeros((T,), jnp.bool_)
@@ -178,8 +178,8 @@ def merge_spectra_lean(acc: Spectrum, batch: Spectrum, *, k: int) -> Spectrum:
     """Memory-lean sorted-spectrum merge for k % 16 != 0 (sentinel-safe keys).
 
     ``merge_spectra`` sorts L+2 operands (validity + limbs + counts) of 2C
-    rows; at SPEC config-5 scale (C=134M, L=3) that is a ~10.7 GB transient —
-    the site of the round-3 RESOURCE_EXHAUSTED on a 16 GB chip. For odd k
+    rows; at SPEC config-5 scale (C=134M, L=3) that is a ~10.7 GB transient
+    that once ran out of device memory. For odd k
     with k %% 16 != 0 limb 0 of a valid key never uses all 32 bits, so
     invalid rows can carry the all-ones sentinel IN limb 0 and the explicit
     validity operand disappears: L+1 operands, and the merged output needs no
@@ -231,10 +231,9 @@ def merge_lean_body(acc: Spectrum, batch: Spectrum, k: int) -> Spectrum:
     n = jnp.sum(is_new.astype(jnp.int32))
     n_valid = jnp.sum(sv.astype(jnp.int32))
     # Compaction by a SECOND 1-operand sort instead of segment scatters: the
-    # scatter version cost ~12 s/group at config-5 scale (two transactional
-    # 2C-row scatters, the [C, L] row-set worst); the composite-key sort +
-    # capacity-sized gathers run at sequential-traffic speed (same trick as
-    # the one-shot reduce, measured there: 0.4 s sort vs 1.1 s scatter).
+    # scatter version paid two random-access 2C-row scatters (the [C, L]
+    # row-set worst); the composite-key sort + capacity-sized gathers are
+    # mostly sequential traffic (same trick as the one-shot reduce).
     iota = jnp.arange(M, dtype=jnp.uint32)
     comp = jnp.where(is_new, iota, iota + jnp.uint32(M))
     (comp_sorted,) = jax.lax.sort([comp], num_keys=1)

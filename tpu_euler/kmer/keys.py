@@ -1,6 +1,6 @@
 """Multi-limb 2-bit-packed k-mer keys.
 
-TPU-native replacement for the reference's GPU hash-table keys (SURVEY.md section
+Sort-friendly replacement for the reference's GPU hash-table keys (SURVEY.md section
 2a R3/R4 — the PyCUDA reference packed l-tuples into 64-bit ints for a GPU hash
 table; the mount was empty so this cites the survey, not files). Design choices:
 
@@ -8,7 +8,7 @@ table; the mount was empty so this cites the survey, not files). Design choices:
   significant), **right-aligned** into ``L = ceil(k/16)`` uint32 limbs, limb 0 most
   significant. With fixed k, unsigned lexicographic comparison on the limb tuple
   equals lexicographic comparison on the base string.
-* uint32 limbs instead of 64-bit ints: TPUs have no native 64-bit integer ALU, and
+* uint32 limbs instead of 64-bit ints: JAX runs with 64-bit types disabled, and
   XLA's variadic sort compares multiple uint32 key operands lexicographically —
   so k=41 (82-bit keys, SPEC config 5) costs one extra limb, not an emulated
   128-bit type. k must be odd so no k-mer is its own reverse complement.
@@ -220,7 +220,7 @@ def sort_by_key(limbs: jax.Array, valid: jax.Array, *payloads: jax.Array):
     """Sort rows by (invalid-last, key lexicographic). Returns (limbs, valid, *payloads).
 
     This is the workhorse primitive behind counting and CSR construction — the
-    TPU-native answer to the reference's atomics-based GPU hash table (SURVEY.md
+    sort-based answer to the reference's atomics-based GPU hash table (SURVEY.md
     R4): XLA variadic sort with L+1 uint32 key operands.
     """
     L = limbs.shape[-1]

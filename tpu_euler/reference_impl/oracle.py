@@ -2,10 +2,10 @@
 
 SURVEY.md section 2b: the reference binary is unavailable (empty mount), so the
 practical oracle for the SPEC's "exact contig sequence-set equality after
-canonicalization" bar is this CPU implementation. The TPU pipeline must produce
+canonicalization" bar is this CPU implementation. The device pipeline must produce
 the identical canonical contig set.
 
-Semantics (shared, exactly, with the TPU implementation):
+Semantics (shared, exactly, with the device implementation):
 
 1. Extract all k-mers from reads (windows containing N are dropped); count by
    canonical form min(kmer, revcomp); drop canonical count < min_count.

@@ -162,7 +162,7 @@ def simulate_paired_read_codes(
 
 
 # ---------------------------------------------------------------------------
-# Adversarial genome profiles (VERDICT r3 item 8). Uniform-random genomes have
+# Adversarial genome profiles. Uniform-random genomes have
 # unique k-mers whp, which never stresses repeat resolution, cycle cutting on
 # short periodic cycles, homopolymer self-loops, or hash-owner balance. These
 # seeded generators produce the structures real genomes are full of.
